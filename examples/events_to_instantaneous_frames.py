@@ -10,8 +10,8 @@ import pathlib
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from adder_tpu.codec.decoder import open_file_decoder
-from adder_tpu.framer.driver import FramerBuilder
+from adder_jax.codec.decoder import open_file_decoder
+from adder_jax.framer.driver import FramerBuilder
 
 path = sys.argv[1] if len(sys.argv) > 1 else (
     "/root/reference/adder-codec-rs/tests/samples/sample_3_ordered.adder"

@@ -8,9 +8,9 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from adder_tpu.codec.encoder import EncoderOptions, EncoderType
-from adder_tpu.core.types import PixelMultiMode, SourceCamera, TimeMode
-from adder_tpu.transcoder.framed import FramedArray
+from adder_jax.codec.encoder import EncoderOptions, EncoderType
+from adder_jax.core.types import PixelMultiMode, SourceCamera, TimeMode
+from adder_jax.transcoder.framed import FramedArray
 
 rng = np.random.default_rng(0)
 frames = np.clip(

@@ -15,8 +15,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from adder_tpu.core.types import PlaneSize
-from adder_tpu.utils.aedat4 import (
+from adder_jax.core.types import PlaneSize
+from adder_jax.utils.aedat4 import (
     COMPRESSION_NONE,
     COMPRESSION_ZSTD,
     Aedat4Reader,
@@ -24,7 +24,7 @@ from adder_tpu.utils.aedat4 import (
     EventsPacket,
     FramePacket,
 )
-from adder_tpu.transcoder import edi
+from adder_jax.transcoder import edi
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -64,7 +64,7 @@ def test_aedat4_roundtrip(compression):
 
 def test_lz4_block_roundtrip_against_reference_vectors():
     """The native LZ4 block decoder against hand-built compressed blocks."""
-    from adder_tpu.codec.compressed import lz4_block_decompress
+    from adder_jax.codec.compressed import lz4_block_decompress
 
     # literals-only block: token lit_len<<4, literals
     blk = bytes([0x50]) + b"hello"
@@ -158,9 +158,9 @@ def test_threaded_provider_overlaps_consumer():
     sum() (ref: davis.rs:626-632 runs davis-edi-rs on its own thread)."""
     import time
 
-    from adder_tpu.core.types import PlaneSize
-    from adder_tpu.transcoder.davis import DavisPacket
-    from adder_tpu.transcoder.edi import ThreadedProvider
+    from adder_jax.core.types import PlaneSize
+    from adder_jax.transcoder.davis import DavisPacket
+    from adder_jax.transcoder.edi import ThreadedProvider
 
     N, STEP = 8, 0.05
 
@@ -215,10 +215,10 @@ def test_davis_aedat4_to_adder_e2e(tmp_path, batched):
     """aedat4 -> EDI -> Davis source -> .adder file decodes back (both the
     scalar-oracle and the batched device integration paths consume the
     SoA DvsEvents batches the reconstructor emits)."""
-    from adder_tpu.codec.decoder import open_file_decoder
-    from adder_tpu.codec.encoder import EncoderOptions, EncoderType
-    from adder_tpu.core.types import PixelMultiMode, SourceCamera, TimeMode
-    from adder_tpu.transcoder.davis import Davis, TranscoderMode
+    from adder_jax.codec.decoder import open_file_decoder
+    from adder_jax.codec.encoder import EncoderOptions, EncoderType
+    from adder_jax.core.types import PixelMultiMode, SourceCamera, TimeMode
+    from adder_jax.transcoder.davis import Davis, TranscoderMode
 
     fx = tmp_path / "davis.aedat4"
     _write_davis_fixture(str(fx))

@@ -11,10 +11,10 @@ import io
 import numpy as np
 import pytest
 
-from adder_tpu.codec import raw as rawcodec
-from adder_tpu.codec.decoder import Decoder, open_file_decoder
-from adder_tpu.codec.encoder import Encoder, EncoderOptions, EventOrder
-from adder_tpu.codec.header import (
+from adder_jax.codec import raw as rawcodec
+from adder_jax.codec.decoder import Decoder, open_file_decoder
+from adder_jax.codec.encoder import Encoder, EncoderOptions, EventOrder
+from adder_jax.codec.header import (
     MAGIC_RAW,
     CodecMetadata,
     Eof,
@@ -23,7 +23,7 @@ from adder_tpu.codec.header import (
     decode_header,
     encode_header,
 )
-from adder_tpu.core.types import (
+from adder_jax.core.types import (
     EOF_PX_ADDRESS,
     NO_CHANNEL,
     Event,
@@ -278,7 +278,7 @@ def test_fixture_reencode_identical(samples_dir, tmp_path):
 def test_event_drop_manual(tmp_path):
     """EventDrop manual EMA rate limiter drops events when the rate exceeds
     the target (ref: encoder.rs:234-253)."""
-    from adder_tpu.codec.encoder import EventDrop
+    from adder_jax.codec.encoder import EventDrop
 
     meta = make_meta()
     opts = EncoderOptions.default(meta.plane)
@@ -304,7 +304,7 @@ def test_event_drop_ema_matches_scalar_recurrence():
     recurrence (ref: encoder.rs:234-253) and handles 1M events quickly."""
     import time as _time
 
-    from adder_tpu.codec.compressed import event_drop_ema
+    from adder_jax.codec.compressed import event_drop_ema
 
     rng = np.random.default_rng(3)
     for alpha, target, t_diff, rate0 in [

@@ -9,11 +9,11 @@ import io
 import numpy as np
 import pytest
 
-from adder_tpu.codec.compressed import compress_adu, decompress_adu
-from adder_tpu.codec.decoder import Decoder, open_file_decoder
-from adder_tpu.codec.encoder import Encoder, EncoderOptions, EncoderType
-from adder_tpu.codec.header import CodecMetadata, MAGIC_COMPRESSED
-from adder_tpu.core.types import (
+from adder_jax.codec.compressed import compress_adu, decompress_adu
+from adder_jax.codec.decoder import Decoder, open_file_decoder
+from adder_jax.codec.encoder import Encoder, EncoderOptions, EncoderType
+from adder_jax.codec.header import CodecMetadata, MAGIC_COMPRESSED
+from adder_jax.core.types import (
     NO_CHANNEL,
     Event,
     EventArray,
@@ -272,7 +272,7 @@ def test_compressed_seek_adu_boundaries(tmp_path):
     """`addec` streams seek at ADU boundaries: replaying from a boundary
     yields exactly the events of the remaining ADUs, with correct start_t
     (ref: decoder.rs:225-231, compressed/stream.rs:394-400)."""
-    from adder_tpu.codec.header import SeekError
+    from adder_jax.codec.header import SeekError
 
     path, _ = _write_compressed(tmp_path)
     dec = open_file_decoder(str(path))
@@ -319,7 +319,7 @@ def test_compressed_truncated_adu_is_eof(tmp_path):
 def test_compressed_corrupt_adu_bounded(tmp_path):
     """Corrupting ADU payload bytes must not hang or exhaust memory: decode
     either raises CodecError/Eof or returns (garbage) events — bounded."""
-    from adder_tpu.codec.header import CodecError, Eof
+    from adder_jax.codec.header import CodecError, Eof
 
     path, _ = _write_compressed(tmp_path, name="corrupt.adder")
     data = bytearray(path.read_bytes())
@@ -470,8 +470,8 @@ def test_addrn_truncated_raw_side_channel_bounded(tmp_path):
     """addrn v3 carries FULL-escape low bytes in a raw side channel after
     the three coded streams; truncating or corrupting inside it must fail
     cleanly (CodecError / short decode), never crash or hang."""
-    from adder_tpu.codec.compressed import compress_adu, decompress_adu
-    from adder_tpu.codec.header import CodecError
+    from adder_jax.codec.compressed import compress_adu, decompress_adu
+    from adder_jax.codec.header import CodecError
 
     w, h = 48, 32
     ev = synth_events(600, w, h, 1, 255 * 8, seed=7, start_t=0)

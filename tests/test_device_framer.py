@@ -1,4 +1,4 @@
-"""Device framer vs host framer parity (CPU jit; same code runs on TPU).
+"""Device framer vs host framer parity (CPU jit; the same code runs on the GPU).
 
 The device framer fills (d, dt) payloads on the accelerator and converts
 values on pop through the identical host f64 path, so popped frames must be
@@ -11,16 +11,16 @@ import io
 import numpy as np
 import pytest
 
-from adder_tpu.codec.decoder import open_file_decoder
-from adder_tpu.core.types import (
+from adder_jax.codec.decoder import open_file_decoder
+from adder_jax.core.types import (
     EventArray,
     PlaneSize,
     SourceCamera,
     SourceType,
     TimeMode,
 )
-from adder_tpu.framer.device import DeviceFramer
-from adder_tpu.framer.driver import FramerBuilder
+from adder_jax.framer.device import DeviceFramer
+from adder_jax.framer.driver import FramerBuilder
 
 
 def _builder(plane, tps, ref, dtm, fps, version, time_mode, camera):
@@ -109,7 +109,7 @@ def test_device_matches_host_views(view, version, time_mode):
     """SAE / D / DeltaT view modes and EventCoordless output on the device
     framer match the host framer byte-for-byte (ref: scale_intensity.rs
     FrameValue impls; driver.rs:1017-1043)."""
-    from adder_tpu.framer.scale_intensity import FramedViewMode
+    from adder_jax.framer.scale_intensity import FramedViewMode
 
     plane = PlaneSize(16, 12, 1)
     tps, ref, dtm = 60_000, 1000, 8000

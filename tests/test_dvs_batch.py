@@ -10,15 +10,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from adder_tpu.codec.encoder import EncoderOptions, EncoderType
-from adder_tpu.core.types import (
+from adder_jax.codec.encoder import EncoderOptions, EncoderType
+from adder_jax.core.types import (
     Mode,
     PixelMultiMode,
     SourceCamera,
     TimeMode,
 )
-from adder_tpu.ops import dvs_batch as B
-from adder_tpu.ops import integrate as K
+from adder_jax.ops import dvs_batch as B
+from adder_jax.ops import integrate as K
 
 
 def test_masked_interval_restores_unmasked_pixels():
@@ -98,10 +98,10 @@ def _make_raw(path, w, h, events):
         f.write(rec.tobytes())
 
 
-def _run(path, batched, multi_mode, engine=None):
-    from adder_tpu.transcoder.prophesee import Prophesee
+def _run(path, batched, multi_mode):
+    from adder_jax.transcoder.prophesee import Prophesee
 
-    src = Prophesee(20, str(path), batched=batched, engine=engine)
+    src = Prophesee(20, str(path), batched=batched)
     out = open(str(path) + (".b" if batched else ".o"), "wb")
     src.write_out(
         SourceCamera.Dvs, TimeMode.AbsoluteT, multi_mode, None,
@@ -150,48 +150,6 @@ def test_batched_matches_oracle(tmp_path, multi_mode):
         )
 
 
-def _check_resident_matches_scan(tmp_path, multi_mode, n_events):
-    """The T-resident Pallas DVS engine (lane sub-steps as kernel
-    intervals, prophesee._run_lanes_resident) must reproduce the scan
-    engine's per-pixel event streams bit-for-bit — and, transitively, the
-    scalar oracle's (test_batched_matches_oracle)."""
-    w, h = 14, 10
-    rng = np.random.default_rng(11)
-    events = []
-    t = 10
-    for _ in range(n_events):
-        t += int(rng.integers(1, 1500))
-        events.append(
-            (t, int(rng.integers(0, w)), int(rng.integers(0, h)),
-             int(rng.integers(0, 2)))
-        )
-    raw = tmp_path / "res.raw"
-    _make_raw(raw, w, h, events)
-
-    scan = _run(raw, batched=True, multi_mode=multi_mode, engine="scan")
-    resident = _run(
-        raw, batched=True, multi_mode=multi_mode, engine="resident"
-    )
-    assert set(scan) == set(resident)
-    for key in sorted(scan):
-        assert scan[key] == resident[key], (
-            key, scan[key][:6], resident[key][:6]
-        )
-
-
-@pytest.mark.slow
-def test_resident_engine_matches_scan(tmp_path):
-    # compile-heavy (two engines on one core); the fast tier pins the
-    # compact plan + scatter (test_compact_plan_matches_dense_and_scatter)
-    # and the oracle==scan chain; full engine parity runs in the slow tier
-    _check_resident_matches_scan(tmp_path, PixelMultiMode.Collapse, 120)
-
-
-@pytest.mark.slow
-def test_resident_engine_matches_scan_normal_long(tmp_path):
-    _check_resident_matches_scan(tmp_path, PixelMultiMode.Normal, 260)
-
-
 @pytest.mark.parametrize(
     "mode_name",
     ["RawDavis", pytest.param("RawDvs", marks=pytest.mark.slow)],
@@ -199,14 +157,14 @@ def test_resident_engine_matches_scan_normal_long(tmp_path):
 def test_davis_batched_matches_oracle(mode_name):
     """Davis batched path (davis_event_interval + dense frame/gap calls)
     must reproduce the oracle's per-pixel event streams exactly."""
-    from adder_tpu.transcoder.davis import (
+    from adder_jax.transcoder.davis import (
         ArrayDavisProvider,
         Davis,
         DavisPacket,
         DvsEvent,
         TranscoderMode,
     )
-    from adder_tpu.core.types import PlaneSize
+    from adder_jax.core.types import PlaneSize
 
     mode = TranscoderMode[mode_name]
     H, W = 12, 14
@@ -258,13 +216,13 @@ def test_davis_batched_matches_oracle(mode_name):
 def test_davis_framed_mode_batched():
     """Framed transcoder mode (APS frames only) through the batched path
     matches the oracle too (exercises _integrate_frame_batched alone)."""
-    from adder_tpu.transcoder.davis import (
+    from adder_jax.transcoder.davis import (
         ArrayDavisProvider,
         Davis,
         DavisPacket,
         TranscoderMode,
     )
-    from adder_tpu.core.types import PlaneSize
+    from adder_jax.core.types import PlaneSize
 
     H, W = 10, 12
     plane = PlaneSize(W, H, 1)
@@ -294,76 +252,12 @@ def test_davis_framed_mode_batched():
     batched = run(True)
     assert oracle == batched and len(oracle) > 0
 
-@pytest.mark.slow
-def test_davis_resident_engine_matches_scan():
-    """The DAVIS lanes through the T-resident Pallas kernel (dvs='davis'
-    op order, compact device-side plane scatter) must reproduce the XLA
-    scan engine's per-pixel event streams bit-for-bit — and, transitively,
-    the scalar oracle's (test_davis_batched_matches_oracle)."""
-    from adder_tpu.transcoder.davis import (
-        ArrayDavisProvider,
-        Davis,
-        DavisPacket,
-        DvsEvent,
-        TranscoderMode,
-    )
-    from adder_tpu.core.types import PlaneSize
-
-    H, W = 12, 14
-    plane = PlaneSize(W, H, 1)
-    rng = np.random.default_rng(17)
-
-    def frame():
-        return rng.integers(40, 200, (H, W)).astype(np.uint8)
-
-    def burst(t0, t1, n):
-        return [
-            DvsEvent(t=int(t), x=int(rng.integers(0, W)),
-                     y=int(rng.integers(0, H)), on=bool(rng.integers(0, 2)))
-            for t in sorted(rng.integers(t0, t1, n))
-        ]
-
-    packets = [
-        DavisPacket(frame(), 1000, 3000, burst(10, 900, 70)),
-        DavisPacket(None, 0, 0, burst(3100, 6000, 90)),
-        DavisPacket(frame(), 9000, 11000, burst(6100, 8900, 60)),
-    ]
-
-    def run(engine):
-        src = Davis(ArrayDavisProvider(packets, plane), ref_time=255,
-                    mode=TranscoderMode.RawDavis, batched=True,
-                    engine=engine)
-        streams = {}
-        while True:
-            try:
-                arr = src.consume()
-            except EOFError:
-                break
-            for x, y, d, t in zip(arr.x, arr.y, arr.d, arr.t):
-                streams.setdefault((int(x), int(y)), []).append(
-                    (int(d), int(t))
-                )
-        return streams
-
-    scan = run("scan")
-    resident = run("resident")
-    assert set(scan) == set(resident)
-    for key in sorted(scan):
-        assert scan[key] == resident[key], (
-            key, scan[key][:6], resident[key][:6]
-        )
-
-
 def test_compact_plan_matches_dense_and_scatter():
-    """Fast-tier pin for the compact resident feed: the compact planner
-    mutates identical chain state to the dense planner (one shared math
-    path), and the device-side plane scatter (build_dvs_planes)
-    reproduces the host stack_lanes interleave bit-for-bit. The full
-    engine e2e parity pins are slow-tier (compile-heavy)."""
-    import jax.numpy as jnp
-
-    from adder_tpu.ops import dvs_batch as B
-    from adder_tpu.ops import fused_resident as FR
+    """The compact planner mutates identical chain state to the dense
+    planner (one shared math path), and the dense per-lane planes the scan
+    engine consumes carry exactly the compact rows: each row lands at its
+    (lane, pixel) with its gap and tick fields, and nothing else is set."""
+    from adder_jax.ops import dvs_batch as B
 
     w, h = 14, 10
     n = w * h
@@ -387,35 +281,26 @@ def test_compact_plan_matches_dense_and_scatter():
     assert compact.n_lanes == L and L >= 2
 
     gi, gf, gt, gm, ti, tf, tt, tm = B.stack_lanes(lanes, L)
-    T = 2 * L
-    want_inten = np.zeros((T, n), np.float32)
-    want_tsp = np.zeros((T, n), np.float32)
-    want_fvw = np.zeros((T, n), np.int32)
-    want_inten[0::2] = gi
-    want_inten[1::2] = ti
-    want_tsp[0::2] = gt
-    want_tsp[1::2] = tt
-    want_fvw[0::2] = gf | (gm.astype(np.int32) << 8)
-    want_fvw[1::2] = tf | (tm.astype(np.int32) << 8)
-
-    inten, tsp, fvw = FR.build_dvs_planes(
-        T, n, jnp.asarray(compact.pix), jnp.asarray(compact.lane),
-        jnp.asarray(compact.gap_on), jnp.asarray(compact.gap_fv),
-        jnp.asarray(compact.gap_int), jnp.asarray(compact.gap_time),
-        jnp.asarray(compact.tick_on), jnp.asarray(compact.tick_fv),
-        jnp.asarray(compact.tick_int), jnp.asarray(compact.tick_time),
-    )
-    np.testing.assert_array_equal(np.asarray(inten), want_inten)
-    np.testing.assert_array_equal(np.asarray(tsp), want_tsp)
-    np.testing.assert_array_equal(np.asarray(fvw), want_fvw)
+    want = {k: np.zeros((L, n), a.dtype) for k, a in
+            zip("gi gf gt gm ti tf tt tm".split(), (gi, gf, gt, gm, ti, tf, tt, tm))}
+    c = compact
+    g, k = c.gap_on, c.tick_on
+    want["gm"][c.lane[g], c.pix[g]] = True
+    want["gf"][c.lane[g], c.pix[g]] = c.gap_fv[g]
+    want["gi"][c.lane[g], c.pix[g]] = c.gap_int[g]
+    want["gt"][c.lane[g], c.pix[g]] = c.gap_time[g]
+    want["tm"][c.lane[k], c.pix[k]] = True
+    want["tf"][c.lane[k], c.pix[k]] = c.tick_fv[k]
+    want["ti"][c.lane[k], c.pix[k]] = c.tick_int[k]
+    want["tt"][c.lane[k], c.pix[k]] = c.tick_time[k]
+    for name, got in zip("gi gf gt gm ti tf tt tm".split(),
+                         (gi, gf, gt, gm, ti, tf, tt, tm)):
+        np.testing.assert_array_equal(got, want[name], err_msg=name)
 
 
 def test_davis_compact_plan_matches_dense_and_scatter():
     """DAVIS twin of test_compact_plan_matches_dense_and_scatter."""
-    import jax.numpy as jnp
-
-    from adder_tpu.ops import dvs_batch as B
-    from adder_tpu.ops import fused_resident as FR
+    from adder_jax.ops import dvs_batch as B
 
     w, h = 14, 10
     n = w * h
@@ -442,18 +327,12 @@ def test_davis_compact_plan_matches_dense_and_scatter():
     assert compact.n_lanes == L and L >= 2
 
     fi_d, dt_d, fv_d, f8_d, m_d = B.stack_davis_lanes(lanes, L)
-    want_fvw = f8_d | (m_d.astype(np.int32) << 8)
-
-    fi, dt, fv, fvw = FR.build_davis_planes(
-        L, n, jnp.asarray(compact.pix), jnp.asarray(compact.lane),
-        jnp.asarray(compact.active), jnp.asarray(compact.first_int),
-        jnp.asarray(compact.dt_ticks), jnp.asarray(compact.fval),
-        jnp.asarray(compact.fv8),
-    )
-    np.testing.assert_array_equal(np.asarray(fi), fi_d)
-    np.testing.assert_array_equal(np.asarray(dt), dt_d)
-    np.testing.assert_array_equal(np.asarray(fv), fv_d)
-    np.testing.assert_array_equal(np.asarray(fvw), want_fvw)
+    c = compact
+    for got, vals in ((fi_d, c.first_int), (dt_d, c.dt_ticks),
+                      (fv_d, c.fval), (f8_d, c.fv8), (m_d, c.active)):
+        want = np.zeros_like(got)
+        want[c.lane, c.pix] = vals
+        np.testing.assert_array_equal(got, want)
 
 
 def test_native_dvs_planner_matches_numpy():
@@ -462,8 +341,8 @@ def test_native_dvs_planner_matches_numpy():
     lane-major row order, and the mutated last_t/last_ln chain state —
     across the drop rule (t < last_t), tick-only events (t == lt+1),
     gap+tick events, and both mid-clamp branches."""
-    from adder_tpu.ops import dvs_batch as B
-    from adder_tpu.ops.native_dvs_plan import plan_dvs_native
+    from adder_jax.ops import dvs_batch as B
+    from adder_jax.ops.native_dvs_plan import plan_dvs_native
 
     w, h = 23, 17
     n = w * h
@@ -505,8 +384,8 @@ def test_native_davis_planner_matches_numpy():
     """DAVIS twin: the multiplicative ln step, the dt_us==t /
     negative-dt drop rule, unconditional last_t update, and both
     clamp_u8 branches, bit-exact vs the numpy reference."""
-    from adder_tpu.ops import dvs_batch as B
-    from adder_tpu.ops.native_dvs_plan import plan_davis_native
+    from adder_jax.ops import dvs_batch as B
+    from adder_jax.ops.native_dvs_plan import plan_davis_native
 
     w, h = 19, 13
     n = w * h
@@ -539,140 +418,18 @@ def test_native_davis_planner_matches_numpy():
     np.testing.assert_array_equal(ln1, ln2)
 
 
-def test_packed8_carrier_reconstructs_plan_fields():
-    """The 8-byte/event factored carrier (pack_dvs_plan8 +
-    unpack_dvs_carrier8) must reconstruct every device-consumed field
-    bit-identically to the planner's own arrays: gap_int as the defining
-    f32 product, gap_time from the exact i32 gap_n * ref product, fvs and
-    tick_int via the shared dictionary. Gap-side fields of tick-only rows
-    are don't-cares (the plane scatter drops them), so gap comparisons
-    mask on gap_on. Time offsets are large so gap_n exercises the split
-    hi/lo field."""
-    from adder_tpu.ops import dvs_batch as B
-    from adder_tpu.ops import fused_resident as FR
-
-    w, h = 23, 11
-    n = w * h
-    rng = np.random.default_rng(31)
-    n_ev = 700
-    # large spread -> gap_n well past 2^20 (the lo-field boundary)
-    ts = np.sort(rng.integers(5, 9_000_000, n_ev)).astype(np.uint32)
-    xs = rng.integers(0, w, n_ev).astype(np.uint16)
-    ys = rng.integers(0, h, n_ev).astype(np.uint16)
-    ps = rng.integers(0, 2, n_ev).astype(np.uint8)
-    lt = np.full(n, 2, np.uint32)
-    ln = np.full(n, np.log1p(128.0 / 255.0), np.float64)
-    ref = 20
-    plan = B.plan_dvs_batch_compact(ts, xs, ys, ps, w, n, lt, ln, 0.02, ref)
-    E = len(plan.pix)
-    assert E > 0 and int(np.where(plan.gap_on, plan.gap_n, 0).max()) > (1 << 20)
-
-    E_pad = E + 29
-    out = FR.pack_dvs_plan8(plan, E_pad, n, ref)
-    assert out is not None
-    packed, pb = out
-    assert packed.shape == (2, E_pad + FR.DICT_CAP)
-    assert pb == int(n - 1).bit_length()
-
-    import jax.numpy as jnp
-
-    fields = FR.unpack_dvs_carrier8(jnp.asarray(packed), pb, ref)
-    pix, lane, gap_on, gap_fv, gap_int, gap_time, tick_on, tick_fv, \
-        tick_int = (np.asarray(f)[:E] for f in fields)
-    np.testing.assert_array_equal(pix, plan.pix)
-    np.testing.assert_array_equal(lane, plan.lane)
-    np.testing.assert_array_equal(gap_on, plan.gap_on)
-    np.testing.assert_array_equal(tick_on, plan.tick_on)
-    g = plan.gap_on
-    np.testing.assert_array_equal(gap_fv[g], plan.gap_fv[g])
-    np.testing.assert_array_equal(
-        gap_int[g].view(np.int32), plan.gap_int[g].view(np.int32)
-    )
-    np.testing.assert_array_equal(
-        gap_time[g].view(np.int32), plan.gap_time[g].view(np.int32)
-    )
-    t = plan.tick_on
-    np.testing.assert_array_equal(tick_fv[t], plan.tick_fv[t])
-    np.testing.assert_array_equal(
-        tick_int[t].view(np.int32), plan.tick_int[t].view(np.int32)
-    )
-    # padding rows are inert: no gap/tick flags -> scatter drops them
-    pad_on = np.asarray(fields[2])[E:] | np.asarray(fields[6])[E:]
-    assert not pad_on.any()
-
-
 def test_packed_carriers_roundtrip_and_masked_parity():
-    """The single-upload i32 carriers (pack_dvs_plan / pack_davis_plan /
-    the (4, N) masked-call carrier) must decode in-graph to exactly the
-    arrays the unpacked paths ship, and the packed/const masked-interval
-    dispatches must produce identical states and events to the unpacked
-    one (each device_put is a full RTT on a high-latency link, so the
-    production sources ship one carrier per call)."""
+    """The single-upload masked-call forms — the (4, N) i32 array and the
+    in-graph constant bootstrap — must produce identical states and events
+    to the unpacked masked-interval dispatch."""
     import jax
     import jax.numpy as jnp
 
-    from adder_tpu.ops import dvs_batch as B
-    from adder_tpu.ops import fused_resident as FR
-    from adder_tpu.ops import integrate as I
-    from adder_tpu.core.types import Mode, TimeMode
+    from adder_jax.ops import dvs_batch as B
+    from adder_jax.ops import integrate as I
+    from adder_jax.core.types import Mode, TimeMode
 
-    w, h = 23, 11
-    n = w * h
-    rng = np.random.default_rng(47)
-    n_ev = 500
-    ts = np.sort(rng.integers(5, 3000, n_ev)).astype(np.uint32)
-    xs = rng.integers(0, w, n_ev).astype(np.uint16)
-    ys = rng.integers(0, h, n_ev).astype(np.uint16)
-    ps = rng.integers(0, 2, n_ev).astype(np.uint8)
-    lt = np.full(n, 2, np.uint32)
-    ln = np.full(n, np.log1p(128.0 / 255.0), np.float64)
-    plan = B.plan_dvs_batch_compact(ts, xs, ys, ps, w, n, lt, ln, 0.02, 20)
-
-    # carrier round-trip: pack -> in-graph unpack == the unpacked fields
-    # (20-byte/event dense layout: meta word, fv word, 3 f32-bit rows)
-    E_pad = len(plan.pix) + 13
-    packed = jnp.asarray(FR.pack_dvs_plan(plan, E_pad))
-    bf = lambda r: jax.lax.bitcast_convert_type(packed[r], jnp.float32)
-    E = len(plan.pix)
-    meta = np.asarray(packed[0])
-    np.testing.assert_array_equal((meta & 0xFFFFF)[:E], plan.pix)
-    np.testing.assert_array_equal(((meta >> 20) & 0x7F)[:E], plan.lane)
-    np.testing.assert_array_equal(
-        (((meta >> 27) & 1) != 0)[:E], plan.gap_on
-    )
-    np.testing.assert_array_equal(
-        (((meta >> 28) & 1) != 0)[:E], plan.tick_on
-    )
-    fvs = np.asarray(packed[1])
-    np.testing.assert_array_equal((fvs & 0xFF)[:E], plan.gap_fv)
-    np.testing.assert_array_equal(((fvs >> 8) & 0xFF)[:E], plan.tick_fv)
-    np.testing.assert_array_equal(np.asarray(bf(2))[:E], plan.gap_int)
-    np.testing.assert_array_equal(np.asarray(bf(3))[:E], plan.gap_time)
-    np.testing.assert_array_equal(np.asarray(bf(4))[:E], plan.tick_int)
-    assert not (((meta >> 27) & 1) != 0)[E:].any()  # padding is inert
-    assert not (((meta >> 28) & 1) != 0)[E:].any()
-
-    # davis carrier
-    lt_d = np.zeros(n, np.int64)
-    ln_d = np.full(n, np.log1p(0.5), np.float64)
-    dplan = B.plan_davis_events_compact(
-        ts.astype(np.int64), xs, ys, ps.astype(bool), w, n, lt_d, ln_d,
-        0.15, 255, 1.5,
-    )
-    dp = jnp.asarray(FR.pack_davis_plan(dplan, len(dplan.pix) + 5))
-    Ed = len(dplan.pix)
-    bfd = lambda r: jax.lax.bitcast_convert_type(dp[r], jnp.float32)
-    dmeta = np.asarray(dp[0])
-    np.testing.assert_array_equal((dmeta & 0xFFFFF)[:Ed], dplan.pix)
-    np.testing.assert_array_equal(((dmeta >> 20) & 0x7F)[:Ed], dplan.lane)
-    np.testing.assert_array_equal(
-        (((dmeta >> 27) & 1) != 0)[:Ed], dplan.active
-    )
-    np.testing.assert_array_equal(np.asarray(bfd(2))[:Ed], dplan.first_int)
-    np.testing.assert_array_equal(np.asarray(bfd(3))[:Ed], dplan.dt_ticks)
-    np.testing.assert_array_equal(np.asarray(bfd(4))[:Ed], dplan.fval)
-    np.testing.assert_array_equal(np.asarray(dp[1])[:Ed], dplan.fv8)
-
+    n = 23 * 11
     # masked-interval: unpacked vs packed vs const, identical state+events
     p = I.TranscodeParams(
         mode=int(Mode.Continuous), time_mode=int(TimeMode.AbsoluteT),
@@ -763,130 +520,3 @@ def test_masked_interval_const_reps_and_void():
     assert int(n_pv) == 0 and pix_pv.shape == (0,)
     for a, b in zip(jax.tree.leaves(st_pv), jax.tree.leaves(st_a)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_fused_native_pack8_matches_numpy_twin():
-    """The fused native planner+pack (adder_plan_dvs_pack8) must produce,
-    per 64-aligned lane group, a carrier whose UNPACKED fields are
-    bit-identical to the classic plan_dvs_batch_compact + pack_dvs_plan8
-    pipeline (dictionary insertion order differs from np.unique's sorted
-    order, so carrier bytes legitimately differ — the kernel only sees
-    the unpacked fields), and must advance the chain state (last_t /
-    last_ln / val_cache) identically."""
-    from adder_tpu.ops import dvs_batch as B
-    from adder_tpu.ops import fused_resident as FR
-    from adder_tpu.ops.native_dvs_plan import plan_dvs_pack8_native
-
-    w, h = 23, 11
-    n = w * h
-    rng = np.random.default_rng(7)
-    n_ev = 4000
-    # large spread exercises the split gap_n hi/lo field
-    ts = np.sort(rng.integers(5, 9_000_000, n_ev)).astype(np.uint32)
-    xs = rng.integers(0, w, n_ev).astype(np.uint16)
-    ys = rng.integers(0, h, n_ev).astype(np.uint16)
-    ps = rng.integers(0, 2, n_ev).astype(np.uint8)
-    theta, ref = 0.02, 20
-    lt1 = np.full(n, 2, np.uint32)
-    ln1 = np.full(n, np.log1p(128.0 / 255.0), np.float64)
-    vc1 = np.full(n, np.nan, np.float64)
-    lt2, ln2, vc2 = lt1.copy(), ln1.copy(), vc1.copy()
-
-    pp = plan_dvs_pack8_native(
-        ts, xs, ys, ps, w, n, lt1, ln1, theta, ref, val_cache=vc1
-    )
-    if pp is None:
-        pytest.skip("native planner unavailable (no g++)")
-    plan = B.plan_dvs_batch_compact(
-        ts, xs, ys, ps, w, n, lt2, ln2, theta, ref, val_cache=vc2
-    )
-    # chain state parity (NaN-aware equality for the exp memo)
-    np.testing.assert_array_equal(lt1, lt2)
-    np.testing.assert_array_equal(ln1, ln2)
-    np.testing.assert_array_equal(vc1, vc2)
-    assert pp.n_lanes == plan.n_lanes
-    assert len(pp.row0) == len(plan.pix)
-
-    import jax.numpy as jnp
-
-    for g0 in range(0, pp.n_lanes, 64):
-        g1 = min(pp.n_lanes, g0 + 64)
-        g = plan.lane_slice(g0, g1)
-        r0, r1 = int(pp.lane_off[g0]), int(pp.lane_off[g1])
-        E = r1 - r0
-        assert E == len(g.pix)
-        # per-lane gap/tick active counts drive capacity sizing
-        for k in range(g0, g1):
-            sel = g.lane == (k - g0)
-            assert int(pp.gap_cnt[k]) == int(g.gap_on[sel].sum())
-            assert int(pp.tick_cnt[k]) == int(g.tick_on[sel].sum())
-        E_pad = E + 13
-        out = FR.pack_dvs_plan8(g, E_pad, n, ref)
-        assert out is not None
-        packed_np, pb = out
-        assert pb == pp.pb
-        packed8 = np.zeros((2, E_pad + FR.DICT_CAP), np.uint32)
-        packed8[0, :E] = pp.row0[r0:r1]
-        packed8[1, :E] = pp.row1[r0:r1]
-        nd = len(pp.dict0)
-        packed8[0, E_pad : E_pad + nd] = pp.dict0
-        packed8[1, E_pad : E_pad + nd] = pp.dict1
-        fa = FR.unpack_dvs_carrier8(
-            jnp.asarray(packed8.view(np.int32)), pp.pb, ref
-        )
-        fb = FR.unpack_dvs_carrier8(jnp.asarray(packed_np), pb, ref)
-        fa = [np.asarray(f)[:E] for f in fa]
-        fb = [np.asarray(f)[:E] for f in fb]
-        # native rows are lane-major; the classic slice is event-order.
-        # (pix, lane) is unique per window (lane = occurrence index), so
-        # sorting both by it aligns the rows.
-        oa = np.lexsort((fa[0], fa[1]))
-        ob = np.lexsort((fb[0], fb[1]))
-        names = (
-            "pix", "lane", "gap_on", "gap_fv", "gap_int", "gap_time",
-            "tick_on", "tick_fv", "tick_int",
-        )
-        ga, ta = fa[2][oa], fa[6][oa]
-        np.testing.assert_array_equal(ga, fb[2][ob], err_msg="gap_on")
-        np.testing.assert_array_equal(ta, fb[6][ob], err_msg="tick_on")
-        for idx, name in enumerate(names):
-            if name in ("gap_on", "tick_on"):
-                continue
-            m = ga if name.startswith("gap") else (
-                ta if name.startswith("tick") else slice(None)
-            )
-            va, vb = fa[idx][oa], fb[idx][ob]
-            if va.dtype == np.float32:
-                va, vb = va.view(np.int32), vb.view(np.int32)
-            np.testing.assert_array_equal(va[m], vb[m], err_msg=name)
-
-
-def test_fused_native_pack8_restores_chain_on_infeasible():
-    """When the window doesn't fit the factored layout the wrapper must
-    return None with the chain state (last_t / last_ln / val_cache)
-    EXACTLY as it was, so the classic fallback replays from a pristine
-    chain (the C++ walk advances state mid-stream before bailing)."""
-    from adder_tpu.ops.native_dvs_plan import plan_dvs_pack8_native
-
-    w, h = 5, 4
-    n = w * h
-    n_ev = 300
-    ts = np.arange(10, 10 + 2 * n_ev, 2, dtype=np.uint32)
-    xs = np.full(n_ev, 2, np.uint16)  # one hot pixel -> lane overflow
-    ys = np.full(n_ev, 1, np.uint16)
-    ps = (np.arange(n_ev) % 2).astype(np.uint8)
-    lt = np.full(n, 2, np.uint32)
-    ln = np.full(n, np.log1p(128.0 / 255.0), np.float64)
-    vc = np.full(n, np.nan, np.float64)
-    lt0, ln0, vc0 = lt.copy(), ln.copy(), vc.copy()
-    pp = plan_dvs_pack8_native(
-        ts, xs, ys, ps, w, n, lt, ln, 0.02, 20, val_cache=vc, lane_cap=8
-    )
-    from adder_tpu.ops import native_dvs_plan as NP
-
-    if NP._get_lib() is None:
-        pytest.skip("native planner unavailable (no g++)")
-    assert pp is None
-    np.testing.assert_array_equal(lt, lt0)
-    np.testing.assert_array_equal(ln, ln0)
-    np.testing.assert_array_equal(vc, vc0)

@@ -5,29 +5,29 @@ import io
 import numpy as np
 import pytest
 
-from adder_tpu.codec.encoder import EncoderOptions, EncoderType
-from adder_tpu.core.types import (
+from adder_jax.codec.encoder import EncoderOptions, EncoderType
+from adder_jax.core.types import (
     Mode,
     PixelMultiMode,
     PlaneSize,
     SourceCamera,
     TimeMode,
 )
-from adder_tpu.models.player import AdderPlayer
-from adder_tpu.transcoder.davis import (
+from adder_jax.models.player import AdderPlayer
+from adder_jax.transcoder.davis import (
     ArrayDavisProvider,
     Davis,
     DavisPacket,
     DvsEvent,
     TranscoderMode,
 )
-from adder_tpu.transcoder.d_controller import (
+from adder_jax.transcoder.d_controller import (
     DControllerAggressive,
     DControllerManual,
     DControllerStandard,
 )
-from adder_tpu.transcoder.framed import FramedArray
-from adder_tpu.utils.viz import ShowFeatureMode, draw_feature_coord, draw_rect
+from adder_jax.transcoder.framed import FramedArray
+from adder_jax.utils.viz import ShowFeatureMode, draw_feature_coord, draw_rect
 
 
 def moving_square_frames(T=10, H=24, W=32):
@@ -104,7 +104,7 @@ def test_player_roundtrip(samples_dir):
 
 
 def test_player_view_mode(samples_dir):
-    from adder_tpu.framer.scale_intensity import FramedViewMode
+    from adder_jax.framer.scale_intensity import FramedViewMode
 
     player = AdderPlayer(
         str(samples_dir / "sample_3_ordered.adder"), view_mode=FramedViewMode.D
@@ -158,7 +158,7 @@ def test_feature_pipelining_matches_sequential():
     carry + batched device FAST lookup) must produce the same event bytes
     AND the same feature set as strictly sequential chunks (round 3
     flushed before every chunk, serializing the pipeline)."""
-    from adder_tpu.transcoder.video import Video
+    from adder_jax.transcoder.video import Video
 
     frames = moving_square_frames(T=12)
     plane = PlaneSize(32, 24, 1)

@@ -11,10 +11,10 @@ import io
 import numpy as np
 import pytest
 
-from adder_tpu.codec.decoder import open_file_decoder
-from adder_tpu.core.types import Event, EventArray, PlaneSize, SourceCamera, SourceType, TimeMode
-from adder_tpu.framer.driver import FramerBuilder, FrameSequence
-from adder_tpu.framer.scale_intensity import FramedViewMode
+from adder_jax.codec.decoder import open_file_decoder
+from adder_jax.core.types import Event, EventArray, PlaneSize, SourceCamera, SourceType, TimeMode
+from adder_jax.framer.driver import FramerBuilder, FrameSequence
+from adder_jax.framer.scale_intensity import FramedViewMode
 
 
 def reconstruct(path, fps, batched=True):
@@ -109,7 +109,7 @@ def test_framer_wider_output_types(samples_dir, dtype):
 
 def test_framer_coordless_output(samples_dir):
     """EventCoordless passthrough frames (ref: scale_intensity.rs:32-52)."""
-    from adder_tpu.framer.driver import unpack_coordless
+    from adder_jax.framer.driver import unpack_coordless
 
     dec = open_file_decoder(str(samples_dir / "sample_3_ordered.adder"))
     m = dec.meta
@@ -171,10 +171,10 @@ def _random_stream(rng, plane, n, t_mode):
 
 def _run_stream(fs, batches, force_numpy, monkeypatch_ctx):
     if force_numpy:
-        import adder_tpu.framer.driver as drv
+        import adder_jax.framer.driver as drv
 
         monkeypatch_ctx.setattr(
-            "adder_tpu.framer.native_ingest.ingest_native",
+            "adder_jax.framer.native_ingest.ingest_native",
             lambda *_a, **_k: False,
         )
     frames = []
@@ -196,7 +196,7 @@ def test_native_ingest_parity_views(monkeypatch, view_mode, t_mode):
     """Native C++ ingest (ops/native/framer_fill.cpp) must be bit-exact vs
     the numpy segmented-scan path across view modes, time modes, and
     multi-batch carries."""
-    from adder_tpu.framer import native_ingest
+    from adder_jax.framer import native_ingest
 
     if native_ingest._get_lib() is None:
         pytest.skip("native framer unavailable")
@@ -232,7 +232,7 @@ def test_native_ingest_parity_views(monkeypatch, view_mode, t_mode):
 @pytest.mark.parametrize("dtype", [np.uint16, np.uint64])
 def test_native_ingest_parity_dtypes_coordless(monkeypatch, dtype):
     """Wider outputs and EventCoordless packing through the native path."""
-    from adder_tpu.framer import native_ingest
+    from adder_jax.framer import native_ingest
 
     if native_ingest._get_lib() is None:
         pytest.skip("native framer unavailable")

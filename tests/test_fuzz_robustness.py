@@ -8,10 +8,10 @@ import io
 import numpy as np
 import pytest
 
-from adder_tpu.codec import compressed as cc
-from adder_tpu.codec.decoder import Decoder, open_file_decoder
-from adder_tpu.codec.encoder import Encoder, EncoderOptions
-from adder_tpu.codec.header import (
+from adder_jax.codec import compressed as cc
+from adder_jax.codec.decoder import Decoder, open_file_decoder
+from adder_jax.codec.encoder import Encoder, EncoderOptions
+from adder_jax.codec.header import (
     MAGIC_COMPRESSED,
     MAGIC_RANS,
     MAGIC_RAW,
@@ -21,7 +21,7 @@ from adder_tpu.codec.header import (
     WrongMagic,
     encode_header,
 )
-from adder_tpu.core.types import EventArray, PlaneSize, SourceCamera, TimeMode
+from adder_jax.core.types import EventArray, PlaneSize, SourceCamera, TimeMode
 
 
 def _meta(adu_interval=4):
@@ -91,7 +91,7 @@ def test_truncated_compressed_stream(entropy):
 
 
 def test_aedat4_garbage_rejected():
-    from adder_tpu.utils.aedat4 import MAGIC, Aedat4Reader
+    from adder_jax.utils.aedat4 import MAGIC, Aedat4Reader
 
     rng = np.random.default_rng(1)
     with pytest.raises(ValueError):

@@ -10,9 +10,9 @@ import pytest
 
 import jax
 
-from adder_tpu.core.types import Coord, Mode, PixelMultiMode, TimeMode
-from adder_tpu.ops import integrate as K
-from adder_tpu.transcoder import pixel_oracle as O
+from adder_jax.core.types import Coord, Mode, PixelMultiMode, TimeMode
+from adder_jax.ops import integrate as K
+from adder_jax.transcoder import pixel_oracle as O
 
 
 def run_oracle(frames, params: K.TranscodeParams, c_thresh0, init_frame=None):
@@ -149,7 +149,7 @@ def test_exact_div_uint24_matches_exact_div():
     integer a in [0, 2^24), integer b in [1, 2^12)."""
     import jax.numpy as jnp
 
-    from adder_tpu.ops import numerics
+    from adder_jax.ops import numerics
 
     rng = np.random.default_rng(21)
     a = rng.integers(0, 1 << 24, 200_000).astype(np.float32)

@@ -29,8 +29,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from adder_tpu.core.types import TimeMode
-from adder_tpu.models.simulproc import SimulProcArgs, simulproc_from_args
+from adder_jax.core.types import TimeMode
+from adder_jax.models.simulproc import SimulProcArgs, simulproc_from_args
 
 SAMPLES = pathlib.Path("/root/reference/adder-codec-rs/tests/samples")
 

@@ -1,7 +1,7 @@
 """Multi-host ingest + event-part merge tests (simulated on the CPU mesh).
 
-The reference has no distributed story (SURVEY §2.5); these pin the
-TPU-native one (adder_tpu/parallel/multihost.py): an 8-device CPU mesh is
+The reference has no distributed story (SURVEY §2.5); these pin this
+one (adder_jax/parallel/multihost.py): an 8-device CPU mesh is
 partitioned into simulated "hosts", each host assembles only its devices'
 event buffers into an interval-major part, and the merged parts must equal
 the one-shot global assembly byte for byte."""
@@ -12,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from adder_tpu.ops import integrate as ops
-from adder_tpu.parallel import multihost as mh
-from adder_tpu.parallel import sharding as sh
+from adder_jax.ops import integrate as ops
+from adder_jax.parallel import multihost as mh
+from adder_jax.parallel import sharding as sh
 
 
 def cpu_devices(n):
@@ -25,22 +25,24 @@ def cpu_devices(n):
     return devs[:n] if len(devs) >= n else None
 
 
-def _run_resident(mesh, ndev, n_local, T, seed=6):
+def _run_sharded(mesh, ndev, n_local, T, seed=6):
     n = n_local * ndev
     p = ops.TranscodeParams()
-    cap = 4 * n_local * T
+    cap = ops.K_SLOTS * n_local * T
     rng = np.random.default_rng(seed)
     frames = rng.integers(0, 256, (T, n)).astype(np.uint8)
     state = ops.set_initial_d(
         ops.init_state(n), jnp.asarray(frames[0].astype(np.int32))
     )
     run0 = jnp.zeros((n,), jnp.uint8)
-    fn = sh.make_resident_chunk_sharded(
-        p, cap, mesh, pallas_block=n_local, interpret=True
-    )
+    fn = sh.make_chunk_sharded(p, cap, mesh)
     st_sh = sh.shard_state(state, mesh)
     outs = fn(st_sh, jnp.asarray(frames), jnp.float32(255.0), run0)
-    return frames, outs
+    return cap, outs
+
+
+def _prefixes(bufs, totals, cap, dev_ids):
+    return [bufs[d * cap : d * cap + int(totals[d])] for d in dev_ids]
 
 
 def test_init_multihost_single_process_noop():
@@ -100,32 +102,30 @@ def test_host_parts_merge_matches_global(tmp_path, ndev, nhosts):
         pytest.skip(f"need {ndev} cpu devices")
     mesh = sh.make_mesh(devs)
     n_local, T = 128, 3
-    frames, outs = _run_resident(mesh, ndev, n_local, T)
-    (_, bufs_p, bufs_t, totals, _pi, pmax, _run, counts) = outs
+    cap, outs = _run_sharded(mesh, ndev, n_local, T)
+    (_, bufs_p, bufs_t, totals, per_int_d, _pmax, _run) = outs
     bufs_p = np.asarray(bufs_p)
     bufs_t = np.asarray(bufs_t)
     totals = np.asarray(totals)
-    counts = np.asarray(counts)
-    pmax = np.asarray(pmax)
+    per_int_d = np.asarray(per_int_d)
 
-    ref_p, ref_t = sh.assemble_resident_sharded(
-        bufs_p, bufs_t, totals, counts, ndev, pack_max=pmax,
-        n_local_px=n_local,
+    every = list(range(ndev))
+    ref_p, ref_t, _ = sh.assemble_sharded_events(
+        _prefixes(bufs_p, totals, cap, every),
+        _prefixes(bufs_t, totals, cap, every), per_int_d, n_local,
     )
     assert len(ref_p) > 0
     # multi-interval events, else the interval-major merge is untested
-    assert np.count_nonzero(counts.sum(axis=(0, 1))) >= 2
+    assert np.count_nonzero(per_int_d.sum(axis=0)) >= 2
 
-    cap = bufs_p.shape[0] // ndev
     dper = ndev // nhosts
     parts = []
     for h in range(nhosts):
         dev_ids = list(range(h * dper, (h + 1) * dper))
         hp, ht, per_int = mh.assemble_host_events(
-            bufs_p[h * dper * cap : (h + 1) * dper * cap],
-            bufs_t[h * dper * cap : (h + 1) * dper * cap],
-            totals[dev_ids], counts[dev_ids], dev_ids, n_local,
-            pack_max=pmax,
+            _prefixes(bufs_p, totals, cap, dev_ids),
+            _prefixes(bufs_t, totals, cap, dev_ids),
+            per_int_d[dev_ids], dev_ids, n_local,
         )
         path = tmp_path / f"events.part{h}.npz"
         mh.write_event_part(
@@ -148,20 +148,20 @@ def test_addressable_host_view_covers_all_devices_single_process():
         pytest.skip("need 2 cpu devices")
     mesh = sh.make_mesh(devs)
     n_local, T = 128, 2
-    _, outs = _run_resident(mesh, ndev, n_local, T, seed=9)
-    (_, bufs_p, bufs_t, totals, _pi, pmax, _run, counts) = outs
-    ref_p, ref_t = sh.assemble_resident_sharded(
-        np.asarray(bufs_p), np.asarray(bufs_t), np.asarray(totals),
-        np.asarray(counts), ndev, pack_max=np.asarray(pmax),
-        n_local_px=n_local,
+    cap, outs = _run_sharded(mesh, ndev, n_local, T, seed=9)
+    (_, bufs_p, bufs_t, totals, per_int_d, _pmax, _run) = outs
+    tot = np.asarray(totals)
+    every = list(range(ndev))
+    ref_p, ref_t, _ = sh.assemble_sharded_events(
+        _prefixes(np.asarray(bufs_p), tot, cap, every),
+        _prefixes(np.asarray(bufs_t), tot, cap, every),
+        np.asarray(per_int_d), n_local,
     )
-    lp, lt, ltot, lcnt, dev_ids = mh.addressable_host_view(
-        bufs_p, bufs_t, totals, counts, mesh
+    lp, lt, lper, dev_ids = mh.addressable_host_view(
+        bufs_p, bufs_t, totals, per_int_d, mesh
     )
     assert dev_ids == list(range(ndev))
-    hp, ht, _ = mh.assemble_host_events(
-        lp, lt, ltot, lcnt, dev_ids, n_local, pack_max=np.asarray(pmax)
-    )
+    hp, ht, _ = mh.assemble_host_events(lp, lt, lper, dev_ids, n_local)
     np.testing.assert_array_equal(hp, ref_p)
     np.testing.assert_array_equal(ht, ref_t)
 

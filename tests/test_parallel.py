@@ -1,8 +1,9 @@
-"""Multi-chip sharding tests on a virtual CPU mesh.
+"""Multi-device sharding tests on a virtual CPU mesh.
 
-Mirrors how the driver validates the multi-chip path: shard the full
-transcode chunk over an 8-device mesh (pixels never communicate, so the hot
-loop needs no collectives; XLA inserts any needed data movement)."""
+The plain XLA chunk runs on every device's row band under shard_map
+(parallel/sharding.make_chunk_sharded): pixels never communicate, so the
+hot loop has no collectives, and the host assembly must restore the
+single-device stream — interval-major across devices — exactly."""
 
 import numpy as np
 import pytest
@@ -10,8 +11,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from adder_tpu.ops import integrate as ops
-from adder_tpu.parallel import sharding as sh
+from adder_jax.ops import integrate as ops
+from adder_jax.parallel import sharding as sh
 
 
 def cpu_devices(n):
@@ -22,130 +23,16 @@ def cpu_devices(n):
     return devs[:n] if len(devs) >= n else None
 
 
-@pytest.mark.parametrize("ndev", [2, 8])
+@pytest.mark.parametrize("ndev", [2, 4, 8])
 def test_sharded_chunk_matches_single(ndev):
     devs = cpu_devices(ndev)
     if devs is None:
         pytest.skip(f"need {ndev} cpu devices (xla_force_host_platform_device_count)")
     mesh = sh.make_mesh(devs)
-    n = 16 * 8 * ndev
-    T = 2
-    p = ops.TranscodeParams()
-    cap = ops.K_SLOTS * n * T * 4  # per_interval_take divides by 4
-
-    rng = np.random.default_rng(0)
-    frames = rng.integers(0, 256, (T, n)).astype(np.uint8)
-
-    # single-device reference (same graph, unsharded)
-    fn = ops.make_transcode_chunk(p, cap, ops.K_SLOTS)
-    st0 = ops.init_state(n)
-    with jax.default_device(devs[0]):
-        outs_ref = fn(
-            jax.device_put(st0, devs[0]),
-            jnp.asarray(frames),
-            jnp.float32(255.0),
-            jnp.zeros((n,), jnp.uint8),
-        )
-
-    st = sh.shard_state(ops.init_state(n), mesh)
-    fr = jax.device_put(
-        jnp.asarray(frames),
-        jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(None, "px")),
-    )
-    run0 = jax.device_put(
-        jnp.zeros((n,), jnp.uint8),
-        jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec("px")),
-    )
-    sfn = sh.make_transcode_chunk_sharded(p, cap, mesh)
-    outs = sfn(st, fr, jnp.float32(255.0), run0)
-
-    # same totals, same per-interval counts, same event stream
-    assert int(outs[6]) == int(outs_ref[6])
-    assert np.array_equal(np.asarray(outs[7]), np.asarray(outs_ref[7]))
-    tot = int(outs[6])
-    assert np.array_equal(np.asarray(outs[1][:tot]), np.asarray(outs_ref[1][:tot]))
-    assert np.array_equal(np.asarray(outs[2][:tot]), np.asarray(outs_ref[2][:tot]))
-    # sharded state pieces match the single-device run
-    for f in ("node_d", "node_integ", "length", "last_fired_t"):
-        assert np.array_equal(
-            np.asarray(getattr(outs[0], f)), np.asarray(getattr(outs_ref[0], f))
-        ), f
-
-
-def test_sharded_fused_chunk_matches_single():
-    """The fused Pallas kernel under shard_map (interpret mode on the CPU
-    mesh): per-device compacted buffers concatenate to the single-device
-    stream (row-block sharding preserves raster order)."""
-    ndev = 2
-    devs = cpu_devices(ndev)
-    if devs is None:
-        pytest.skip("need 2 cpu devices")
-    mesh = sh.make_mesh(devs)
-    BLOCK = 128
-    n_local = BLOCK * 2
+    n_local, T = 64, 3
     n = n_local * ndev
-    T = 2
     p = ops.TranscodeParams()
-    cap = 4 * n_local * T
-
-    rng = np.random.default_rng(5)
-    frames = rng.integers(0, 256, (T, n)).astype(np.uint8)
-    state = ops.set_initial_d(
-        ops.init_state(n), jnp.asarray(frames[0].astype(np.int32))
-    )
-    run0 = jnp.zeros((n,), jnp.uint8)
-
-    # single-device reference: the fused kernel on the whole plane
-    ref_fn = ops.make_fused_chunk(
-        p, cap * ndev, 4, pallas_block=BLOCK, interpret=True
-    )
-    ref = ref_fn(state, jnp.asarray(frames), jnp.float32(255.0), run0)
-    ref_total = int(ref[6])
-    ref_pixd = np.asarray(ref[1][:ref_total])
-    ref_t = np.asarray(ref[2][:ref_total])
-
-    fn = sh.make_fused_chunk_sharded(
-        p, cap, mesh, pallas_block=BLOCK, interpret=True
-    )
-    st_sh = sh.shard_state(state, mesh)
-    outs = fn(st_sh, jnp.asarray(frames), jnp.float32(255.0), run0)
-    (st2, bufs_pixd, bufs_t, totals, per_int, pmax, runnings) = outs
-    totals = np.asarray(totals)
-    pixd_parts, t_parts = sh.assemble_sharded_events(
-        bufs_pixd, bufs_t, totals, ndev
-    )
-    # apply per-device pixel offsets and concatenate
-    glob_pixd = np.concatenate(
-        [part + np.uint32((d * n_local) << 8)
-         for d, part in enumerate(pixd_parts)]
-    )
-    glob_t = np.concatenate(t_parts)
-    assert len(glob_pixd) == ref_total
-    np.testing.assert_array_equal(glob_pixd, ref_pixd)
-    np.testing.assert_array_equal(glob_t, ref_t)
-    # state fields match the single-device run
-    for f_s, f_r in zip(st2[:-1], ref[0][:-1]):
-        np.testing.assert_array_equal(np.asarray(f_s), np.asarray(f_r))
-
-
-def test_sharded_resident_chunk_matches_single():
-    """The T-resident kernel under shard_map: assemble_resident_sharded
-    restores the GLOBAL single-thread order — interval-major across
-    devices — and must match the single-device XLA chunk stream exactly.
-    Uses per-interval-changing frames so every interval emits events (the
-    plain device-major concat of the non-resident path is only correct
-    when a single interval fires; this scenario would catch that)."""
-    ndev = 2
-    devs = cpu_devices(ndev)
-    if devs is None:
-        pytest.skip("need 2 cpu devices")
-    mesh = sh.make_mesh(devs)
-    BLOCK = 128
-    n_local = BLOCK * 2
-    n = n_local * ndev
-    T = 3
-    p = ops.TranscodeParams()
-    cap = 4 * n_local * T
+    cap = ops.K_SLOTS * n_local * T
 
     rng = np.random.default_rng(6)
     frames = rng.integers(0, 256, (T, n)).astype(np.uint8)
@@ -154,27 +41,41 @@ def test_sharded_resident_chunk_matches_single():
     )
     run0 = jnp.zeros((n,), jnp.uint8)
 
-    ref_fn = ops.make_transcode_chunk(p, cap * ndev, ops.K_SLOTS)
-    ref = ref_fn(state, jnp.asarray(frames), jnp.float32(255.0), run0)
+    # single-device reference (same graph, unsharded)
+    ref = ops.make_transcode_chunk(p, cap * ndev, 4)(
+        state, jnp.asarray(frames), jnp.float32(255.0), run0
+    )
     ref_total = int(ref[6])
-    per_int_ref = np.asarray(ref[7])
-    assert np.count_nonzero(per_int_ref) >= 2, "need multi-interval events"
-    ref_pixd = np.asarray(ref[1][:ref_total])
-    ref_t = np.asarray(ref[2][:ref_total])
+    # several intervals fire, so a plain device-major concatenation of the
+    # per-device buffers would be out of order
+    assert np.count_nonzero(np.asarray(ref[7])) >= 2
 
-    fn = sh.make_resident_chunk_sharded(
-        p, cap, mesh, pallas_block=BLOCK, interpret=True
+    fn = sh.make_chunk_sharded(p, cap, mesh)
+    st2, bufs_p, bufs_t, totals, per_int, pmax, runnings = fn(
+        sh.shard_state(state, mesh), jnp.asarray(frames), jnp.float32(255.0),
+        run0,
     )
-    st_sh = sh.shard_state(state, mesh)
-    outs = fn(st_sh, jnp.asarray(frames), jnp.float32(255.0), run0)
-    (st2, bufs_pixd, bufs_t, totals, per_int, pmax, runnings, counts) = outs
-    glob_pixd, glob_t = sh.assemble_resident_sharded(
-        np.asarray(bufs_pixd), np.asarray(bufs_t), np.asarray(totals),
-        np.asarray(counts), ndev, pack_max=np.asarray(pmax),
-        n_local_px=n_local,
+    totals = np.asarray(totals)
+    assert int(totals.sum()) == ref_total
+    assert int(np.max(np.asarray(pmax))) == int(ref[9])
+    bufs_p, bufs_t = np.asarray(bufs_p), np.asarray(bufs_t)
+    pixd, t, per_t = sh.assemble_sharded_events(
+        [bufs_p[d * cap : d * cap + int(totals[d])] for d in range(ndev)],
+        [bufs_t[d * cap : d * cap + int(totals[d])] for d in range(ndev)],
+        np.asarray(per_int), n_local,
     )
-    assert len(glob_pixd) == ref_total
-    np.testing.assert_array_equal(glob_pixd, ref_pixd)
-    np.testing.assert_array_equal(glob_t, ref_t)
+    np.testing.assert_array_equal(per_t, np.asarray(ref[7]))
+    np.testing.assert_array_equal(pixd, np.asarray(ref[1][:ref_total]))
+    np.testing.assert_array_equal(t, np.asarray(ref[2][:ref_total]))
+    np.testing.assert_array_equal(np.asarray(runnings), np.asarray(ref[8]))
     for f_s, f_r in zip(st2[:-1], ref[0][:-1]):
         np.testing.assert_array_equal(np.asarray(f_s), np.asarray(f_r))
+
+
+def test_assemble_rejects_inconsistent_counts():
+    """A device whose interval counts do not sum to its event prefix (a
+    truncated buffer) is an error, not a silently short stream."""
+    pixd = [np.arange(3, dtype=np.uint32), np.arange(2, dtype=np.uint32)]
+    t = [np.zeros(3, np.uint32), np.zeros(2, np.uint32)]
+    with pytest.raises(ValueError, match="device 1"):
+        sh.assemble_sharded_events(pixd, t, np.array([[2, 1], [1, 2]]), 8)

@@ -9,14 +9,14 @@ the JAX kernel is then pinned to the oracle.
 import numpy as np
 import pytest
 
-from adder_tpu.core.types import (
+from adder_jax.core.types import (
     Coord,
     D_EMPTY,
     Mode,
     PixelMultiMode,
     TimeMode,
 )
-from adder_tpu.transcoder.pixel_oracle import PixelArena
+from adder_jax.transcoder.pixel_oracle import PixelArena
 
 C = Coord(0, 0, None)
 CONT = Mode.Continuous

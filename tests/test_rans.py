@@ -12,11 +12,11 @@ import io
 import numpy as np
 import pytest
 
-from adder_tpu.codec import compressed as cc
-from adder_tpu.codec.decoder import Decoder, open_file_decoder
-from adder_tpu.codec.encoder import Encoder, EncoderOptions, EncoderType
-from adder_tpu.codec.header import MAGIC_RANS, CodecError, CodecMetadata
-from adder_tpu.core.types import EventArray, PlaneSize, SourceCamera, TimeMode
+from adder_jax.codec import compressed as cc
+from adder_jax.codec.decoder import Decoder, open_file_decoder
+from adder_jax.codec.encoder import Encoder, EncoderOptions, EncoderType
+from adder_jax.codec.header import MAGIC_RANS, CodecError, CodecMetadata
+from adder_jax.core.types import EventArray, PlaneSize, SourceCamera, TimeMode
 
 
 def _events(n=20000, W=320, H=180, seed=0, tmax=255 * 8):

@@ -1,10 +1,10 @@
 """Runtime utilities: host cache key and the JIT-mapping guard
 (runtime.bound_jit_mappings — the fix for the vm.max_map_count suite
-segfault; see NOTES.md)."""
+segfault)."""
 
 import numpy as np
 
-from adder_tpu import runtime
+from adder_jax import runtime
 
 
 def test_process_map_count_positive():

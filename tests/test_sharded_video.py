@@ -1,4 +1,4 @@
-"""ShardedVideo (multi-chip Video API) parity tests on the CPU mesh.
+"""ShardedVideo (multi-device Video API) parity tests on the CPU mesh.
 
 The sharded transcoder must produce the exact event stream of the
 single-device Video (which is itself oracle- and fixture-pinned): same
@@ -12,13 +12,13 @@ import pytest
 
 import jax
 
-from adder_tpu.codec.encoder import EncoderOptions, EncoderType
-from adder_tpu.core.types import (
+from adder_jax.codec.encoder import EncoderOptions, EncoderType
+from adder_jax.core.types import (
     Mode, PixelMultiMode, PlaneSize, SourceCamera, TimeMode,
 )
-from adder_tpu.parallel import sharding as sh
-from adder_tpu.transcoder.sharded import ShardedVideo
-from adder_tpu.transcoder.video import Video
+from adder_jax.parallel import sharding as sh
+from adder_jax.transcoder.sharded import ShardedVideo
+from adder_jax.transcoder.video import Video
 
 
 def cpu_mesh(n):
@@ -56,15 +56,13 @@ def test_sharded_video_matches_single_device(ndev):
     mesh = cpu_mesh(ndev)
     if mesh is None:
         pytest.skip(f"need {ndev} cpu devices")
-    # 20x24 mono = 480 px: pads to 512 under block=128 x 2 devices —
-    # exercises the pad-pixel filter; 4 devices pad to 512 as well
-    plane = PlaneSize(24, 20, 1)
+    plane = PlaneSize(24, 20, 1)  # 480 px: divides evenly, no padding
     T = 3
     ref = _configure(Video(plane, Mode.FramePerfect))
     svid = _configure(
-        ShardedVideo(plane, Mode.FramePerfect, mesh=mesh, interpret=True)
+        ShardedVideo(plane, Mode.FramePerfect, mesh=mesh)
     )
-    assert svid.n_state % (128 * ndev) == 0
+    assert svid.n_state == 480
 
     for chunk in range(2):
         frames = _mk_frames(plane, T, seed=chunk)
@@ -79,11 +77,11 @@ def test_sharded_video_color_and_continuous():
     mesh = cpu_mesh(2)
     if mesh is None:
         pytest.skip("need 2 cpu devices")
-    plane = PlaneSize(16, 8, 3)  # 384 channel-px -> pads to 512
+    plane = PlaneSize(16, 8, 3)  # 384 channel-px
     T = 2
     ref = _configure(Video(plane, Mode.Continuous))
     svid = _configure(
-        ShardedVideo(plane, Mode.Continuous, mesh=mesh, interpret=True)
+        ShardedVideo(plane, Mode.Continuous, mesh=mesh)
     )
     frames = _mk_frames(plane, T, seed=3)
     ev_ref = ref.integrate_matrix_batch(frames)
@@ -96,12 +94,12 @@ def test_sharded_video_raw_encoder_bytes_identical():
     mesh = cpu_mesh(2)
     if mesh is None:
         pytest.skip("need 2 cpu devices")
-    plane = PlaneSize(16, 16, 1)  # 256 px: exact fit, no padding
+    plane = PlaneSize(16, 16, 1)  # 256 px
     T = 2
     out_ref, out_sh = io.BytesIO(), io.BytesIO()
     ref = _configure(Video(plane, Mode.FramePerfect))
     svid = _configure(
-        ShardedVideo(plane, Mode.FramePerfect, mesh=mesh, interpret=True)
+        ShardedVideo(plane, Mode.FramePerfect, mesh=mesh)
     )
     for v, w in ((ref, out_ref), (svid, out_sh)):
         v.write_out(
@@ -117,6 +115,26 @@ def test_sharded_video_raw_encoder_bytes_identical():
     svid.end_write_stream()
     assert out_sh.getvalue() == out_ref.getvalue()
     assert len(out_sh.getvalue()) > 33  # header + events actually written
+
+
+@pytest.mark.parametrize("ndev", [2, 4, 8])
+def test_sharded_video_pads_plane(ndev):
+    """A plane the device count does not divide is padded; pad-pixel
+    events are filtered after assembly and the stream is unchanged."""
+    mesh = cpu_mesh(ndev)
+    if mesh is None:
+        pytest.skip(f"need {ndev} cpu devices")
+    plane = PlaneSize(7, 5, 1)  # 35 px: pads on every mesh size here
+    ref = _configure(Video(plane, Mode.Continuous))
+    svid = _configure(ShardedVideo(plane, Mode.Continuous, mesh=mesh))
+    assert svid.n_state > svid.n and svid.n_state % ndev == 0
+    for chunk in range(2):
+        frames = _mk_frames(plane, 3, seed=20 + chunk)
+        ev_ref = ref.integrate_matrix_batch(frames)
+        ev_sh = svid.integrate_matrix_batch(frames)
+        assert len(ev_ref) > 0
+        for a, b in zip(_events_tuple(ev_ref), _events_tuple(ev_sh)):
+            np.testing.assert_array_equal(a, b)
 
 
 def _pipeline_stream(video_factory, frames_chunks, plane):
@@ -171,8 +189,7 @@ def test_deep_pipelining_matches_sequential_sharded():
     chunks = [_mk_frames(plane, 2, seed=10 + s) for s in range(5)]
 
     def mk():
-        return ShardedVideo(plane, Mode.FramePerfect, mesh=cpu_mesh(2),
-                            interpret=True)
+        return ShardedVideo(plane, Mode.FramePerfect, mesh=cpu_mesh(2))
 
     seq = _sequential_stream(mk, chunks, plane)
     pipe = _pipeline_stream(mk, chunks, plane)

@@ -12,9 +12,9 @@ import io
 import numpy as np
 import pytest
 
-from adder_tpu.codec.decoder import open_file_decoder
-from adder_tpu.codec.encoder import Encoder, EncoderOptions, EncoderType, RawOutput
-from adder_tpu.core.types import (
+from adder_jax.codec.decoder import open_file_decoder
+from adder_jax.codec.encoder import Encoder, EncoderOptions, EncoderType, RawOutput
+from adder_jax.core.types import (
     Coord,
     EventArray,
     Mode,
@@ -23,10 +23,10 @@ from adder_tpu.core.types import (
     SourceCamera,
     TimeMode,
 )
-from adder_tpu.framer.driver import FramerBuilder
-from adder_tpu.transcoder import pixel_oracle as O
-from adder_tpu.transcoder.framed import FramedArray
-from adder_tpu.transcoder.video import Video
+from adder_jax.framer.driver import FramerBuilder
+from adder_jax.transcoder import pixel_oracle as O
+from adder_jax.transcoder.framed import FramedArray
+from adder_jax.transcoder.video import Video
 
 
 def synth_frames(T, H, W, C=1, seed=0):
@@ -194,15 +194,15 @@ def test_checkpoint_resume_bitexact(tmp_path):
     1 chunk (the reference has no transcoder checkpointing at all)."""
     import io
 
-    from adder_tpu.codec.encoder import EncoderOptions, EncoderType
-    from adder_tpu.core.types import (
+    from adder_jax.codec.encoder import EncoderOptions, EncoderType
+    from adder_jax.core.types import (
         PixelMultiMode,
         PlaneSize,
         SourceCamera,
         TimeMode,
     )
-    from adder_tpu.transcoder.video import Video
-    from adder_tpu.core.types import Mode
+    from adder_jax.transcoder.video import Video
+    from adder_jax.core.types import Mode
 
     rng = np.random.default_rng(4)
     H, W, T = 24, 32, 4
@@ -257,7 +257,7 @@ def test_framed_stream_matches_eager(tmp_path):
     byte-identical .adder output to the eager Framed on the same clip."""
     import pathlib
 
-    from adder_tpu.transcoder.framed import Framed, FramedStream
+    from adder_jax.transcoder.framed import Framed, FramedStream
 
     mp4 = pathlib.Path(
         "/root/reference/adder-codec-rs/tests/samples/lake_scaled_hd_crop.mp4"

@@ -7,10 +7,10 @@ import sys
 import numpy as np
 import pytest
 
-from adder_tpu.codec.decoder import open_file_decoder
-from adder_tpu.codec.encoder import Encoder, EncoderOptions, EncoderType
-from adder_tpu.codec.header import CodecMetadata, LATEST_CODEC_VERSION
-from adder_tpu.core.types import (
+from adder_jax.codec.decoder import open_file_decoder
+from adder_jax.codec.encoder import Encoder, EncoderOptions, EncoderType
+from adder_jax.codec.header import CodecMetadata, LATEST_CODEC_VERSION
+from adder_jax.core.types import (
     Coord,
     Event,
     EventArray,
@@ -19,11 +19,11 @@ from adder_tpu.core.types import (
     SourceCamera,
     TimeMode,
 )
-from adder_tpu.models.adder_to_dvs import adder_to_dvs
-from adder_tpu.transcoder.prophesee import Prophesee, decode_events_np, parse_header
-from adder_tpu.utils import cv
-from adder_tpu.utils.info import adder_info
-from adder_tpu.utils.stream_migration import migrate_v2
+from adder_jax.models.adder_to_dvs import adder_to_dvs
+from adder_jax.transcoder.prophesee import Prophesee, decode_events_np, parse_header
+from adder_jax.utils import cv
+from adder_jax.utils.info import adder_info
+from adder_jax.utils.stream_migration import migrate_v2
 
 
 # --- FAST features ---
@@ -258,7 +258,7 @@ def test_adder_recompress_roundtrip(tmp_path, samples_dir):
     )
     assert r2.returncode == 0, r2.stderr[-1500:]
 
-    from adder_tpu.codec.decoder import open_file_decoder
+    from adder_jax.codec.decoder import open_file_decoder
 
     a = open_file_decoder(str(src)).digest_all()
     b = open_file_decoder(str(back)).digest_all()
@@ -278,8 +278,8 @@ def test_adder_recompress_roundtrip(tmp_path, samples_dir):
 def test_adder_to_dvs_vectorized_matches_scalar(samples_dir):
     """The lane-vectorized DVS transcode core must reproduce the scalar
     reference-shaped loop exactly (stream order, t, polarity, counts)."""
-    from adder_tpu.codec.decoder import open_file_decoder
-    from adder_tpu.models.adder_to_dvs import (
+    from adder_jax.codec.decoder import open_file_decoder
+    from adder_jax.models.adder_to_dvs import (
         _transcode_core,
         _transcode_core_scalar,
     )

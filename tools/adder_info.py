@@ -6,7 +6,7 @@ import sys
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
 
-from adder_tpu.utils.info import adder_info
+from adder_jax.utils.info import adder_info
 
 
 def main():
@@ -19,7 +19,7 @@ def main():
     args = p.parse_args()
     print(adder_info(args.input, args.dynamic_range), end="")
 
-from adder_tpu.codec.header import CodecError  # noqa: E402
+from adder_jax.codec.header import CodecError  # noqa: E402
 if __name__ == "__main__":
     try:
         main()

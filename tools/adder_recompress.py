@@ -34,13 +34,13 @@ def main() -> int:
     )
     args = ap.parse_args()
 
-    from adder_tpu.codec.decoder import open_file_decoder
-    from adder_tpu.codec.encoder import (
+    from adder_jax.codec.decoder import open_file_decoder
+    from adder_jax.codec.encoder import (
         Encoder,
         EncoderOptions,
         RawOutput,
     )
-    from adder_tpu.codec.header import CodecError
+    from adder_jax.codec.header import CodecError
 
     try:
         dec = open_file_decoder(args.input)
@@ -50,7 +50,7 @@ def main() -> int:
     events = dec.digest_all()
     meta = dec.meta
     if args.codec != "raw":
-        from adder_tpu.core.types import TimeMode
+        from adder_jax.core.types import TimeMode
 
         if meta.time_mode != TimeMode.AbsoluteT:
             # the ADU framing (like the reference's) spans absolute time;
@@ -69,7 +69,7 @@ def main() -> int:
     out = open(args.output, "wb")
     opts = EncoderOptions.default(meta.plane)
     if args.codec != "raw":
-        from adder_tpu.codec.rate_controller import Crf
+        from adder_jax.codec.rate_controller import Crf
 
         opts.crf = Crf(args.crf, meta.plane)
     if args.codec == "raw":

@@ -7,8 +7,8 @@ import sys
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
 
-from adder_tpu.core.types import TimeMode
-from adder_tpu.models.simulproc import SimulProcArgs, simulproc_from_args
+from adder_jax.core.types import TimeMode
+from adder_jax.models.simulproc import SimulProcArgs, simulproc_from_args
 
 
 def main():
@@ -68,7 +68,7 @@ def main():
         integration_mode=a.integration_mode,
     )
     if a.trace:
-        from adder_tpu.utils import tracing
+        from adder_jax.utils import tracing
 
         tracing.set_enabled(True)
     ev_writer = open(args.output_events_filename, "wb")
@@ -84,7 +84,7 @@ def main():
         raw_writer.close()
     print(f"wrote {n} reconstructed frames")
     if a.trace:
-        from adder_tpu.utils import tracing
+        from adder_jax.utils import tracing
 
         print(tracing.summary_table())
 

@@ -6,7 +6,7 @@ import sys
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
 
-from adder_tpu.models.adder_to_dvs import adder_to_dvs
+from adder_jax.models.adder_to_dvs import adder_to_dvs
 
 
 def main():
@@ -26,7 +26,7 @@ def main():
         f"{stats['n_dvs_events']} DVS events"
     )
 
-from adder_tpu.codec.header import CodecError  # noqa: E402
+from adder_jax.codec.header import CodecError  # noqa: E402
 if __name__ == "__main__":
     try:
         main()

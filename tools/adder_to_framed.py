@@ -6,8 +6,8 @@ import sys
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
 
-from adder_tpu.codec.decoder import open_file_decoder
-from adder_tpu.framer.driver import FramerBuilder
+from adder_jax.codec.decoder import open_file_decoder
+from adder_jax.framer.driver import FramerBuilder
 
 
 def main():
@@ -35,7 +35,7 @@ def main():
             n += fs.write_multi_frame_bytes(out)
     print(f"wrote {n} frames ({m.plane.width}x{m.plane.height}x{m.plane.channels})")
 
-from adder_tpu.codec.header import CodecError  # noqa: E402
+from adder_jax.codec.header import CodecError  # noqa: E402
 if __name__ == "__main__":
     try:
         main()

@@ -9,9 +9,9 @@ sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]
 
 import numpy as np
 
-from adder_tpu.framer.scale_intensity import FramedViewMode
-from adder_tpu.models.player import AdderPlayer
-from adder_tpu.utils.viz import write_frames_to_video
+from adder_jax.framer.scale_intensity import FramedViewMode
+from adder_jax.models.player import AdderPlayer
+from adder_jax.utils.viz import write_frames_to_video
 
 
 def main():
@@ -47,7 +47,7 @@ def main():
         ok = write_frames_to_video(np.stack(frames), args.output_video, player.fps)
         print(f"wrote {args.output_video}" if ok else "video write failed")
 
-from adder_tpu.codec.header import CodecError  # noqa: E402
+from adder_jax.codec.header import CodecError  # noqa: E402
 if __name__ == "__main__":
     try:
         main()

@@ -180,10 +180,10 @@ class Session:
         if obj is None:
             return
         if kind == "transcode":
-            from adder_tpu.models.live_transcoder import AdaptiveParams
-            from adder_tpu.framer.scale_intensity import FramedViewMode
-            from adder_tpu.utils.viz import ShowFeatureMode
-            from adder_tpu.transcoder.video import Roi
+            from adder_jax.models.live_transcoder import AdaptiveParams
+            from adder_jax.framer.scale_intensity import FramedViewMode
+            from adder_jax.utils.viz import ShowFeatureMode
+            from adder_jax.transcoder.video import Roi
 
             a = AdaptiveParams(
                 crf=cfg["crf"],
@@ -199,7 +199,7 @@ class Session:
             )
             obj.update_adaptive(a)
         else:
-            from adder_tpu.framer.scale_intensity import FramedViewMode
+            from adder_jax.framer.scale_intensity import FramedViewMode
 
             obj.set_view_mode(FramedViewMode(cfg["view_mode"]))
 
@@ -226,8 +226,8 @@ class Session:
                 self.status = "finished"
 
     def _run_transcode(self, cfg):
-        from adder_tpu.codec.encoder import EncoderType
-        from adder_tpu.models.live_transcoder import (
+        from adder_jax.codec.encoder import EncoderType
+        from adder_jax.models.live_transcoder import (
             AdaptiveParams,
             CoreParams,
             LiveTranscoder,
@@ -273,8 +273,8 @@ class Session:
             lt.source.video.end_write_stream()
 
     def _run_play(self, cfg):
-        from adder_tpu.framer.scale_intensity import FramedViewMode
-        from adder_tpu.models.player import AdderPlayer
+        from adder_jax.framer.scale_intensity import FramedViewMode
+        from adder_jax.models.player import AdderPlayer
 
         pl = AdderPlayer(
             cfg["path"], view_mode=FramedViewMode(cfg["view_mode"])
@@ -296,7 +296,7 @@ class Session:
 
 
 def _parse_roi(s):
-    from adder_tpu.transcoder.video import Roi
+    from adder_jax.transcoder.video import Roi
 
     parts = [p for p in s.replace(" ", "").split(",") if p]
     if len(parts) != 4:

@@ -23,7 +23,7 @@ def main() -> int:
     ap.add_argument("--fps", type=float, default=100.0)
     args = ap.parse_args()
 
-    from adder_tpu.utils.aedat4 import Aedat4Reader, EventsPacket
+    from adder_jax.utils.aedat4 import Aedat4Reader, EventsPacket
 
     try:
         reader = Aedat4Reader(args.input)
@@ -76,7 +76,7 @@ def main() -> int:
     print(f"DVS event count: {event_count}; {hi + 1} frames -> {raw_path}")
 
     if args.output_video.endswith(".mp4"):
-        from adder_tpu.utils.viz import write_frames_to_video
+        from adder_jax.utils.viz import write_frames_to_video
 
         stack = np.stack(
             [frames.get(i, np.full((H, W), 128, np.uint8))

@@ -3,7 +3,7 @@
 ref: adder-codec-rs/src/bin_cv/davis_to_adder.rs (args: edi_args /
 transcode_from {framed, raw-davis, raw-dvs} / adder_c_thresh_pos/neg /
 delta_t_max_multiplier / write_out). The EDI stage is the in-repo
-reconstructor (adder_tpu/transcoder/edi.py) instead of davis-edi-rs.
+reconstructor (adder_jax/transcoder/edi.py) instead of davis-edi-rs.
 """
 
 import argparse
@@ -36,7 +36,7 @@ def main() -> int:
     ap.add_argument(
         "--entropy", default="cabac", choices=["cabac", "rans"],
         help="compressed entropy stage: reference-compatible addec or the"
-        " TPU-friendly interleaved-rANS addrn",
+        " interleaved-rANS addrn",
     )
     ap.add_argument("--batched", action=argparse.BooleanOptionalAction,
                     default=True,
@@ -46,10 +46,10 @@ def main() -> int:
                     help="run EDI inline instead of on a worker thread")
     args = ap.parse_args()
 
-    from adder_tpu.codec.encoder import EncoderOptions, EncoderType
-    from adder_tpu.core.types import PixelMultiMode, SourceCamera, TimeMode
-    from adder_tpu.transcoder.davis import Davis, TranscoderMode
-    from adder_tpu.transcoder.edi import EdiReconstructor
+    from adder_jax.codec.encoder import EncoderOptions, EncoderType
+    from adder_jax.core.types import PixelMultiMode, SourceCamera, TimeMode
+    from adder_jax.transcoder.davis import Davis, TranscoderMode
+    from adder_jax.transcoder.edi import EdiReconstructor
 
     mode = {
         "framed": TranscoderMode.Framed,
@@ -69,7 +69,7 @@ def main() -> int:
         return 1
     if not args.no_prefetch:
         # EDI on a dedicated thread, like the reference (davis.rs:626-632)
-        from adder_tpu.transcoder.edi import ThreadedProvider
+        from adder_jax.transcoder.edi import ThreadedProvider
 
         recon = ThreadedProvider(recon)
 

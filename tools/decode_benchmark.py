@@ -10,7 +10,7 @@ import time
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
 
-from adder_tpu.codec.decoder import open_file_decoder
+from adder_jax.codec.decoder import open_file_decoder
 
 
 def main():
@@ -37,7 +37,7 @@ def main():
     if not (args.frame or args.device):
         return
 
-    from adder_tpu.framer.driver import FramerBuilder
+    from adder_jax.framer.driver import FramerBuilder
 
     m = dec.meta
     b = (
@@ -47,7 +47,7 @@ def main():
         .source_info(dec.get_source_type(), m.source_camera)
     )
     if args.device:
-        from adder_tpu.framer.device import DeviceFramer
+        from adder_jax.framer.device import DeviceFramer
 
         fr = DeviceFramer(b)
         fr.ingest_event_array(events)  # warm ingest + pop ops off the clock
@@ -78,7 +78,7 @@ def main():
     )
 
 
-from adder_tpu.codec.header import CodecError  # noqa: E402
+from adder_jax.codec.header import CodecError  # noqa: E402
 if __name__ == "__main__":
     try:
         main()

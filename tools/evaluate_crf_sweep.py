@@ -98,11 +98,11 @@ def main() -> int:
     )
     args = ap.parse_args()
 
-    from adder_tpu.codec.encoder import EncoderOptions, EncoderType
-    from adder_tpu.core.types import PixelMultiMode, SourceCamera, TimeMode
-    from adder_tpu.framer.driver import FramerBuilder
-    from adder_tpu.transcoder.framed import Framed
-    from adder_tpu.utils.cv import QualityMetrics, calculate_quality_metrics
+    from adder_jax.codec.encoder import EncoderOptions, EncoderType
+    from adder_jax.core.types import PixelMultiMode, SourceCamera, TimeMode
+    from adder_jax.framer.driver import FramerBuilder
+    from adder_jax.transcoder.framed import Framed
+    from adder_jax.utils.cv import QualityMetrics, calculate_quality_metrics
 
     out_f = open(args.output, "w") if args.output else None
     for crf in [int(c) for c in args.crfs.split(",") if c != ""]:
@@ -130,7 +130,7 @@ def main() -> int:
         data = buf.getvalue()
 
         # reconstruct
-        from adder_tpu.codec.decoder import Decoder
+        from adder_jax.codec.decoder import Decoder
 
         dec = Decoder(io.BytesIO(data))
         m = dec.meta

@@ -9,11 +9,11 @@ sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]
 
 import numpy as np
 
-from adder_tpu.core.types import PlaneSize, TimeMode
-from adder_tpu.transcoder.framed import Framed
-from adder_tpu.utils.cv import fast_mask, feature_precision_recall_accuracy
-from adder_tpu.utils.logging import FeatureLogger
-from adder_tpu.utils.viz import ShowFeatureMode
+from adder_jax.core.types import PlaneSize, TimeMode
+from adder_jax.transcoder.framed import Framed
+from adder_jax.utils.cv import fast_mask, feature_precision_recall_accuracy
+from adder_jax.utils.logging import FeatureLogger
+from adder_jax.utils.viz import ShowFeatureMode
 
 
 def main():
@@ -55,7 +55,7 @@ def main():
             )
     print(f"evaluated {chunk} chunks -> {args.log}")
 
-from adder_tpu.codec.header import CodecError  # noqa: E402
+from adder_jax.codec.header import CodecError  # noqa: E402
 if __name__ == "__main__":
     try:
         main()

@@ -7,11 +7,11 @@ import sys
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
 
-from adder_tpu.codec.decoder import open_file_decoder
-from adder_tpu.codec.encoder import Encoder, EncoderOptions
-from adder_tpu.codec.header import CodecMetadata, LATEST_CODEC_VERSION
-from adder_tpu.core.types import TimeMode
-from adder_tpu.utils.stream_migration import migrate_v2
+from adder_jax.codec.decoder import open_file_decoder
+from adder_jax.codec.encoder import Encoder, EncoderOptions
+from adder_jax.codec.header import CodecMetadata, LATEST_CODEC_VERSION
+from adder_jax.core.types import TimeMode
+from adder_jax.utils.stream_migration import migrate_v2
 
 
 def main():
@@ -39,7 +39,7 @@ def main():
     enc.close_writer().close()
     print(f"migrated {args.input} (v{m.codec_version}) -> {args.output} (v{LATEST_CODEC_VERSION})")
 
-from adder_tpu.codec.header import CodecError  # noqa: E402
+from adder_jax.codec.header import CodecError  # noqa: E402
 if __name__ == "__main__":
     try:
         main()

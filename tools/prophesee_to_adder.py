@@ -6,9 +6,9 @@ import sys
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
 
-from adder_tpu.codec.encoder import EncoderOptions, EncoderType
-from adder_tpu.core.types import PixelMultiMode, SourceCamera, TimeMode
-from adder_tpu.transcoder.prophesee import Prophesee
+from adder_jax.codec.encoder import EncoderOptions, EncoderType
+from adder_jax.core.types import PixelMultiMode, SourceCamera, TimeMode
+from adder_jax.transcoder.prophesee import Prophesee
 
 
 def main():
